@@ -10,7 +10,8 @@ signal-safe partial-output cleanup, and exit codes 0/1/4.
 
 Engine selection: the numpy oracle and the device codec produce
 identical bytes; LBZIP2_TPU_ENGINE=device routes block compute through
-the JAX kernels (default for large inputs when a TPU is present).
+the JAX device engine (codec/encoder.py), which refuses to run without
+an accelerator unless JAX_PLATFORMS=cpu says so.
 """
 
 from __future__ import annotations
@@ -312,7 +313,7 @@ def _engine_compress(data: bytes, opts: Options) -> bytes:
     if engine == "device":
         from lbzip2_tpu.codec.encoder import compress as dev_compress
         return dev_compress(data, opts.bs100k,
-                            sequential_split=opts.ultra)
+                            sequential_split=opts.ultra, use_device=True)
     if engine == "oracle":
         from lbzip2_tpu.ref.encoder import compress as ref_compress
         return ref_compress(data, opts.bs100k,

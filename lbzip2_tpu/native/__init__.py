@@ -27,36 +27,19 @@ def _build() -> pathlib.Path | None:
     newest_src = max(p.stat().st_mtime for p in _DIR.glob("*.c"))
     if _SO.exists() and _SO.stat().st_mtime >= newest_src:
         return _SO
-    # Profile-guided build when a FRESH local profile is present
-    # (generated by tools/gen_pgo.py into native/.pgo/; not committed —
-    # profiles are box- and gcc-version-specific).  A profile older
-    # than any source is stale and is skipped outright rather than
-    # silently half-applied via -Wno-coverage-mismatch.  Measured ~+4%
-    # compress on the branchy MTF/Huffman/sort paths.
-    pgo_dir = _DIR / ".pgo"
-    profs = list(pgo_dir.rglob("*.gcda")) if pgo_dir.exists() else []
-    extra = []
-    if profs:
-        if min(p.stat().st_mtime for p in profs) >= newest_src:
-            extra = [f"-fprofile-use={pgo_dir}"]
-        else:
-            import sys
-            print("lbzip2_tpu: stale PGO profile ignored "
-                  "(rerun tools/gen_pgo.py)", file=sys.stderr)
-    env_gen = os.environ.get("LBZ2_PGO_GEN")
-    if env_gen:
-        # instrumented build for profile generation (tools/gen_pgo.py)
-        extra = [f"-fprofile-generate={env_gen}"]
-    for attempt in (extra, []):
-        try:
-            subprocess.run(
-                ["gcc", "-O3", "-march=native", "-shared", "-fPIC",
-                 *attempt, str(_SRC), "-o", str(_SO)],
-                check=True, capture_output=True)
-            return _SO
-        except (subprocess.CalledProcessError, FileNotFoundError):
-            continue
-    return None
+    # build under a private name and rename into place: processes that
+    # import concurrently (test workers) never load a half-written file
+    tmp = _SO.with_name(f".{_SO.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(
+            ["gcc", "-O3", "-march=native", "-shared", "-fPIC",
+             str(_SRC), "-o", str(tmp)],
+            check=True, capture_output=True)
+        os.replace(tmp, _SO)
+        return _SO
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        tmp.unlink(missing_ok=True)
+        return None
 
 
 def get_lib():

@@ -506,7 +506,7 @@ long lbz2_encode_payload_from_mtfv(uint16_t *mtfv, long nm,
 /* ---------------- device-chain host halves ----------------
  *
  * The device chain (ops/chain.py) runs MTF+RLE2 and the EM E-steps on
- * the TPU; these entry points are the tiny sequential pieces kept on
+ * the device; these entry points are the tiny sequential pieces kept on
  * the host: the per-tree Huffman refit between E-steps and the final
  * model/header build (everything of lbz2_encode_payload_from_mtfv
  * except the EM loop and the group-code transmit, which packs on

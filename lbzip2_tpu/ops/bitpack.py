@@ -1,7 +1,7 @@
 """Device bit packer: variable-length big-endian fields -> u32 words.
 
-TPU formulation of the reference transmitter's shift-register loop
-(reference src/encode.c:1140-1281 PUTBIT/DUMP/SEND): instead of feeding
+Data-parallel formulation of the reference transmitter's shift-register
+loop (reference src/encode.c:1140-1281 PUTBIT/DUMP/SEND): instead of feeding
 a sequential 64-bit buffer, every output *bit* finds its source field
 with one sorted merge and reads its bit with a vectorized shift — no
 data-dependent control flow, two device sorts + one gather total.

@@ -1,6 +1,6 @@
 """Device Huffman decode: all groups of a block in parallel.
 
-TPU half of the speculative chunked decode plan (SURVEY §7.4;
+Device half of the speculative chunked decode plan (SURVEY §7.4;
 reference retrieve being reproduced: src/decode.c:519-798).  bzip2's
 selector-switched trees leave no bit-level synchronization points, so
 the group *boundaries* come from a light sequential length-walk on the
@@ -84,8 +84,9 @@ def decode_block_device(arr, nbits: int, payload_pos: int):
     bwt bytes, idx, rand) like native.retrieve_block."""
     import numpy as np
 
-    from lbzip2_tpu import native
+    from lbzip2_tpu import compile_cache, native
 
+    compile_cache.enable_for_device()
     err, end_pos, meta = native.retrieve_boundaries(arr, nbits,
                                                     payload_pos)
     if err != 0:

@@ -1,8 +1,8 @@
 """On-device inverse BWT via pointer-doubling list ranking.
 
 The reference chases the IBWT linked list sequentially
-(src/decode.c:852-930 + emit).  A sequential chase is hostile to TPU;
-this kernel instead materializes the traversal order with Wyllie-style
+(src/decode.c:852-930 + emit).  A sequential chase leaves a wide device
+idle; this kernel instead materializes the traversal order with Wyllie-style
 pointer doubling: starting from P (the one-step successor permutation),
 it repeatedly composes P with itself while doubling a known-prefix
 visit sequence — O(n log n) gathers, all dense vector work.

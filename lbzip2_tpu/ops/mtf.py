@@ -10,7 +10,9 @@ where last[t] is the position of t's most recent occurrence before i.
 A lax.scan over fixed-size chunks carries the 256-entry `last` vector;
 within a chunk, exclusive cumulative-max of one-hot positions gives
 every row's last[] view, so all ranks in a chunk are computed with
-dense (C, 256) vector ops — ideal VPU work, no sequential list.
+dense (C, 256) vector ops, no sequential list.  This is the CPU
+formulation; on the GPU ops/mtf_triton.py runs the same identity as
+one kernel per row.
 
 rank 0 == "same symbol again" and is exactly the RLE2 zero-run member;
 the zero-run digits (bijective base-2) are emitted by the host/RLE2

@@ -8,8 +8,8 @@ Formulation: every input position computes locally whether it emits an
 output cell — the j-th zero of a run of length k emits digit j of k+1
 iff j < floor(log2(k+1)), a nonzero rank always emits — and a single
 stable sort compacts kept cells to the front in position order.  No
-scatters (this chip's scatters cost ~7 ms/row at 901120 lanes; the
-previous formulation needed 21 of them per row, the sort costs one).
+scatters (the previous formulation needed 21 of them per row; the sort
+costs one).
 Run extents come from two cumulative maxima (forward: run start;
 backward: next nonzero).
 """

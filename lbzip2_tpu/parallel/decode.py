@@ -217,17 +217,14 @@ def _cancel_candidate(res_or_fut, pool: SlotPool | None) -> None:
 _ERR_BY_VALUE = {e.value: e for e in Error}
 
 # Device IBWT (Wyllie pointer doubling) for the decode path.  Opt-in:
-# on the current chip generation the kernel is gather-bound (~log2(n)
-# full-array gathers per block), so the host C chase wins on wall
-# clock; the wiring exists, is tested, and flips on for hardware with
-# fast gathers.
+# the kernel does ~log2(n) full-array gathers per block; whether it
+# beats the host C chase on the H100 is not measured.
 DEVICE_IBWT = os.environ.get("LBZ2_DEVICE_DECODE", "0") == "1"
 _IBWT_N = 901120  # padded device row (covers MAX_BLOCK_SIZE)
 
 # Device Huffman stage (ops/huffdec.py): host boundary walk + parallel
-# on-device group decode + host IMTF/RLE2.  Opt-in like DEVICE_IBWT:
-# on this chip generation the host C retrieve wins on wall clock, but
-# the wiring is production-complete and corpus-verified.
+# on-device group decode + host IMTF/RLE2.  Opt-in like DEVICE_IBWT;
+# whether it beats the host C retrieve on the H100 is not measured.
 DEVICE_HUFF = os.environ.get("LBZ2_DEVICE_HUFF", "0") == "1"
 
 
@@ -265,8 +262,11 @@ class _DeviceIbwtBatcher:
             items, self._items = self._items, []
         if not items:
             return
-        from lbzip2_tpu.ops.ibwt import ibwt_masked
         import jax
+
+        from lbzip2_tpu import compile_cache
+        from lbzip2_tpu.ops.ibwt import ibwt_masked
+        compile_cache.enable_for_device()
         rows = self.max_batch  # fixed shape: one compile
         batch = np.zeros((rows, _IBWT_N), np.uint8)
         ns = np.ones(rows, np.int32)

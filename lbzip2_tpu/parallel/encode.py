@@ -6,7 +6,7 @@ EM Huffman, bit packing), and the parent reassembles payloads in block
 order folding the combined stream CRC — the collect/encode/transmit/
 reorder task graph of src/compress.c with processes standing in for the
 worker threads (the device engine replaces the per-block BWT/MTF with
-batched TPU kernels instead).
+batched device programs instead).
 """
 
 from __future__ import annotations

@@ -1,10 +1,15 @@
 """Multi-host compression: jax.distributed + DCN reassembly on host 0.
 
-The reference's pthread pipeline is single-machine; the TPU-native
-scaling axis (SURVEY §2 communication backend) is: one JAX process per
-host, each host compresses an input shard (window-aligned so block
+The reference's pthread pipeline is single-machine; the scaling axis
+here (SURVEY §2 communication backend) is: one JAX process per host,
+each host compresses an input shard (window-aligned so block
 boundaries match the single-host result), and host 0 reassembles
 payloads in stream order and folds the combined CRC.
+
+One process per host, never two: a JAX process reserves most of each
+card's memory when it first uses it, so a second process on the same
+host fails for want of device memory.  That process drives all of its
+host's local cards (the device engine round-robins them).
 
 Payload exchange is point-to-point: workers stream their (ragged)
 payloads straight to a reassembly socket on host 0, so the wire
@@ -14,7 +19,7 @@ as a fallback (LBZ2_MULTIHOST_EXCHANGE=allgather, or when no
 coordinator address is known to locate host 0).
 
 Runs unchanged with a single process (the exchange degenerates to
-identity), which is how CI exercises it; pod-slice runs call
+identity), which is how CI exercises it; multi-host runs call
 ``initialize_distributed`` first.
 """
 
@@ -35,7 +40,7 @@ _P2P_PORT = int(os.environ.get("LBZ2_MULTIHOST_PORT", "29747"))
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Initialize jax.distributed for a multi-host pod slice."""
+    """Initialize jax.distributed for a multi-host run."""
     import jax
     if num_processes is None or num_processes <= 1:
         return
@@ -67,7 +72,7 @@ def compress_multihost(shard: bytes | np.ndarray, level: int = 9,
     engine: "hybrid" drives the production device+host pool
     (codec.encoder) per process — each host's engine round-robins its
     local devices; "host" uses the C-only pipeline; None (default)
-    reads LBZ2_MULTIHOST_ENGINE (default "hybrid" — the pod-scale
+    reads LBZ2_MULTIHOST_ENGINE (default "hybrid" — the multi-host
     composition the reference's one-machine pool cannot express)."""
     import jax
     from jax.experimental import multihost_utils

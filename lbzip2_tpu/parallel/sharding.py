@@ -2,12 +2,13 @@
 
 lbzip2's primary parallel axis is independent bzip2 blocks across worker
 threads (SURVEY §2 "parallelism strategies" #1, src/compress.c).  The
-TPU mapping is data parallelism over a `blocks` mesh axis: a batch of
-padded blocks is sharded across chips, each chip runs the fused
-BWT+MTF block kernel on its shard, and results are gathered in block
-order on the host (the reorder stage).  No collectives are needed in
-the compute path — ordering and stream CRC folding happen host-side,
-which keeps ICI free for future pipeline stages (speculative decode).
+device mapping is data parallelism over a 1-D `blocks` mesh axis (the
+cards of a host are joined all to all, so the mesh follows the
+algorithm alone): a batch of padded blocks is sharded across cards,
+each card runs the block kernels on its shard, and results are
+gathered in block order on the host (the reorder stage).  No
+collectives are needed in the compute path — ordering and stream CRC
+folding happen host-side.
 """
 
 from __future__ import annotations
@@ -82,9 +83,8 @@ def sharded_encode_step_v2(mesh: Mesh, axis: str = "blocks"):
 
 
 def sharded_encode_step_tokens(mesh: Mesh, axis: str = "blocks"):
-    """Sharded production BWT with the run-token emit (the single-chip
-    wire-optimized download format, ops/bwt2.py emit2): tokens cost
-    ~0.35-0.5x the raw BWT bytes on the host link.  Each device loops
+    """Sharded production BWT with the run-token emit (the single-card
+    download format, ops/bwt2.py emit2).  Each device loops
     its own shard to convergence; no collectives in the compute path.
     Returns (tokens (B, T) uint32-packed u16 pairs, raw-packed rows,
     run counts, primary indices), all sharded along B."""

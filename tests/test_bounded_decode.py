@@ -1,8 +1,9 @@
 """Bounded-memory decode: the reference's slot-reservation policy.
 
-ch255.bz2 (26 bytes -> ~47 MB) must stream through a fixed output-slot
-pool (reference src/expand.c:31-52) instead of materializing per
-speculative worker."""
+A ch255-like stream (76 bytes -> ~47 MB: one block of 0xFF runs, each
+RLE1 piece of 259 bytes stored as 5) must stream through a fixed
+output-slot pool (reference src/expand.c:31-52) instead of
+materializing per speculative worker."""
 import bz2
 import hashlib
 import io
@@ -16,11 +17,13 @@ from lbzip2_tpu.parallel import decode as D
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="needs native kernels")
 
-CH255 = "/root/reference/tests/ch255.bz2"
+def _ch255() -> bytes:
+    """The reference's ch255.bz2 shape, made with libbzip2."""
+    return bz2.compress(b"\xff" * (179996 * 259), 9)
 
 
 def test_ch255_streams_through_bounded_pool():
-    blob = open(CH255, "rb").read()
+    blob = _ch255()
     exp = bz2.decompress(blob)
     pools = []
     h = hashlib.sha256()
@@ -51,7 +54,7 @@ def test_parallel_decode_slot_accounting():
 
 def test_reservation_never_wedges_tiny_pool():
     """EMIT_THRESH reservation: even a minimal pool makes progress."""
-    blob = open(CH255, "rb").read()
+    blob = _ch255()
     exp_len = len(bz2.decompress(blob))
     total = [0]
     n_in, n_out = D.decompress_stream(

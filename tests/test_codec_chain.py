@@ -2,22 +2,20 @@
 
 LBZ2_DEVICE_CHAIN=1 routes device-bucket blocks through ops/chain.py
 (device MTF+RLE2+EM+pack, host M-step/header); the stream must stay
-bit-identical to the host pipeline and the reference binary.
+bit-identical to the in-repo oracle encoder (ref.encoder).
 """
 
 import importlib
-import subprocess
 
 import numpy as np
 import pytest
 
 from lbzip2_tpu import native
+from lbzip2_tpu.ref.encoder import compress as ref_compress
+from tests import corpus
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="needs C toolchain")
-
-REF_BIN = "/tmp/refbuild/lbzip2"
-
 
 @pytest.fixture()
 def chain_encoder(monkeypatch):
@@ -32,15 +30,11 @@ def chain_encoder(monkeypatch):
 
 
 def _ref(data, level):
-    import pathlib
-    if not pathlib.Path(REF_BIN).exists():
-        pytest.skip("reference binary not built")
-    return subprocess.run([REF_BIN, f"-{level}", "-c"], input=data,
-                          capture_output=True).stdout
+    return ref_compress(data, level)
 
 
 def test_chain_block_bit_exact(chain_encoder):
-    data = open("/root/reference/src/parse.c", "rb").read()[:7800]
+    data = corpus.text(7800, 6)
     out = chain_encoder.compress(data, 9)
     assert out == _ref(data, 9)
     assert chain_encoder.last_stats["device_blocks"] == 1

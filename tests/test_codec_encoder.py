@@ -7,6 +7,7 @@ import pytest
 
 from lbzip2_tpu.codec.encoder import compress as dev_compress
 from lbzip2_tpu.ref.encoder import compress as ref_compress
+from tests import corpus
 
 
 @pytest.mark.parametrize("name", ["hello", "random", "small_alpha",
@@ -18,7 +19,7 @@ def test_device_pipeline_bit_exact(name):
         "random": rng.integers(0, 256, 30000, dtype=np.uint8).tobytes(),
         "small_alpha": rng.integers(0, 4, 60000, dtype=np.uint8).tobytes(),
         "runs": b"abc" * 10 + b"x" * 5000 + b"yz" * 700,
-        "text": open("/root/reference/src/encode.c", "rb").read(),
+        "text": corpus.text(40_000, 5),
     }[name]
     out = dev_compress(data, 9)
     assert out == ref_compress(data, 9)

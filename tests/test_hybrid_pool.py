@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from lbzip2_tpu import native
+from tests import corpus
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="needs C toolchain")
@@ -88,7 +89,7 @@ def test_device_token_and_raw_paths(enc, monkeypatch):
     _small_buckets(enc)
     monkeypatch.setattr(enc, "_HOST_STEAL", False)
     rng = np.random.default_rng(7)
-    text = (open("/root/reference/src/decode.c", "rb").read() * 8)
+    text = corpus.text(200_000, 3)
     noise = rng.integers(0, 256, 200_000, np.uint8).tobytes()
     data = text[:200_000] + noise  # token rows + raw-overflow rows
     out = enc.compress(data, level=1)

@@ -5,6 +5,7 @@ import pytest
 from lbzip2_tpu import native
 from lbzip2_tpu.ops import bwt2
 from lbzip2_tpu.ref.bwt import bwt as ref_bwt
+from tests import corpus
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="needs native lyndon_prep")
@@ -56,7 +57,7 @@ def test_bwt2_deep_repeats():
     b = np.tile(page, 20).copy()
     b[-1] ^= 1  # keep primitive
     text = np.frombuffer(
-        open("/root/reference/src/divbwt.c", "rb").read()[:5000],
+        corpus.text(5000, 2),
         np.uint8).copy()
     _check([b, text])
 

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 
 from lbzip2_tpu.ref import bwt as ref_bwt
+from tests import corpus
 
 
 def _pad_batch(blocks, N):
@@ -58,8 +59,7 @@ def test_sparse_bwt_mixed_lengths():
 
 def test_sparse_bwt_text_block():
     from lbzip2_tpu.ops.bwt import bwt_batched_sparse
-    data = open("/root/reference/src/divbwt.c", "rb").read()
-    blk = np.frombuffer(data, np.uint8)[:30000]
+    blk = np.frombuffer(corpus.text(30000, 9), np.uint8)
     n = blk.size
     out, idx = bwt_batched_sparse(_pad_batch([blk], 32768), n)
     exp_out, exp_idx = ref_bwt.bwt(blk)

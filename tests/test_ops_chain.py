@@ -11,6 +11,7 @@ import pytest
 
 from lbzip2_tpu import native
 from lbzip2_tpu.ref.rle1 import transform_span
+from tests import corpus
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="needs C toolchain")
@@ -28,9 +29,7 @@ def _mk_blocks(specs, N):
     rng = np.random.default_rng(7)
     for i, (n, kind) in enumerate(specs):
         if kind == "text":
-            raw = np.frombuffer(
-                (open("/root/reference/src/encode.c", "rb").read() * 40)
-                [:n], np.uint8)
+            raw = np.frombuffer(corpus.text(n, 8), np.uint8)
         elif kind == "narrow":
             raw = rng.integers(0, 4, n, dtype=np.uint8)
         elif kind == "runs":

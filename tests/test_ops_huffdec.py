@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from lbzip2_tpu import native
+from tests import corpus
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="needs C toolchain")
@@ -34,7 +35,7 @@ def _check(data: bytes, level: int = 9):
 
 
 def test_text_block():
-    _check(open("/root/reference/src/decode.c", "rb").read())
+    _check(corpus.text(60_000, 4))
 
 
 def test_narrow_alphabet():
