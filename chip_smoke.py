@@ -5,9 +5,10 @@ Drives the production path once at full width and checks every output
 byte; nothing is compared with a tolerance.
 
   kernels  one 32 x 901120 batch (the -9 bucket) of seeded 880-900 KB
-           blocks (text, binary, runs, markup, incompressible) through
-           bwt2_bytes + chain_payloads, and through bwt2_tokens (the
-           LBZ2_DEVICE_CHAIN=0 route), against the C encoder
+           blocks (text, binary, runs, markup, repeats, incompressible)
+           through bwt2_bytes + chain_payloads, and through bwt2_tokens
+           (the LBZ2_DEVICE_CHAIN=0 route; every repeats row must go
+           through its run tokens), against the C encoder
   main     the CLI at -9 with LBZIP2_TPU_ENGINE=device over a seeded
            mixed corpus, twice: hybrid (as users run it) and with host
            stealing off.  Each stream must equal host-only
@@ -75,8 +76,9 @@ def _aot(name, fn, *args, **static):
 
 # --- inputs -----------------------------------------------------------------
 
+# repeats rows have long BWT runs, so the token route carries them
 _KINDS = ("text", "binary", "runs", "noise", "text", "markup", "binary",
-          "text")
+          "repeats")
 
 
 def make_blocks(rows: int, n_lo: int, n_hi: int, seed: int):
@@ -191,13 +193,17 @@ def phase_kernels(rows: int = ROWS, bucket: int = BUCKET, seed: int = 0,
     via_tok = 0
     for b, (bw, idx, _) in enumerate(want):
         assert tprim[b] == idx, b
-        if counts[b] <= tok.shape[1]:
+        fits = counts[b] <= tok.shape[1]
+        assert fits or blocks[b][0] != "repeats", \
+            f"repeats row {b} overflowed the token budget"
+        if fits:
             t = tok[b, :counts[b]]
             got = np.repeat((t >> 8).astype(np.uint8), t & 0xFF)
             via_tok += 1
         else:
             got = raw_h[b, :ns[b]]
         assert np.array_equal(got, bw), f"token-route BWT row {b} differs"
+    assert via_tok > 0, "no row went through the run tokens"
     log(f"kernels: {full}/{rows} chain payloads byte-identical (rest over "
         f"pack capacity), {len(sel)} small-pack rows identical, "
         f"primaries identical; token route {via_tok} rows via tokens, "

@@ -36,14 +36,14 @@ CHUNK = 32
 NUM_WARPS = 4
 
 
-def _kernel(x_ref, o_ref, *, chunk: int):
+def _kernel(x_ref, o_ref):
     n = x_ref.shape[0]
     alpha = jnp.arange(256, dtype=jnp.int32)[None, :]
-    ii = jnp.arange(chunk, dtype=jnp.int32)
+    ii = jnp.arange(CHUNK, dtype=jnp.int32)
 
     def body(c, last):
-        base = c * chunk
-        x = pltriton.load(x_ref.at[pl.ds(base, chunk)])
+        base = c * CHUNK
+        x = pltriton.load(x_ref.at[pl.ds(base, CHUNK)])
         onehot = x[:, None] == alpha
         same = (x[:, None] == x[None, :]) & (ii[None, :] < ii[:, None])
         prev_in = jnp.max(jnp.where(same, ii[None, :], -1), axis=1)
@@ -59,30 +59,28 @@ def _kernel(x_ref, o_ref, *, chunk: int):
         rank_first = (jnp.sum(seen.astype(jnp.int32), axis=1)
                       + jnp.sum(((alpha < x[:, None]) & ~seen)
                                 .astype(jnp.int32), axis=1))
-        pltriton.store(o_ref.at[pl.ds(base, chunk)],
+        pltriton.store(o_ref.at[pl.ds(base, CHUNK)],
                        jnp.where(prev >= 0, rank_seen, rank_first))
         tail = jnp.max(csum, axis=0) - 1   # last index in chunk, or -1
         return jnp.maximum(last, jnp.where(tail >= 0, base + tail, -1))
 
-    jax.lax.fori_loop(0, n // chunk, body,
+    jax.lax.fori_loop(0, n // CHUNK, body,
                       jnp.full((256,), -1, jnp.int32))
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("chunk", "num_warps", "interpret"))
+@functools.partial(jax.jit, static_argnames=("interpret",))
 def mtf_ranks_rows_triton(syms: jnp.ndarray, ns: jnp.ndarray,
-                          chunk: int = CHUNK, num_warps: int = NUM_WARPS,
                           interpret: bool = False) -> jnp.ndarray:
     """MTF ranks of syms[b, :ns[b]] for a (B, N) batch, N a multiple
-    of chunk; lanes >= ns[b] are 0."""
+    of CHUNK; lanes >= ns[b] are 0."""
     B, N = syms.shape
-    assert N % chunk == 0, "pad rows to a multiple of chunk"
+    assert N % CHUNK == 0, "pad rows to a multiple of CHUNK"
     call = pl.pallas_call(
-        functools.partial(_kernel, chunk=chunk),
+        _kernel,
         out_shape=jax.ShapeDtypeStruct((N,), jnp.int32),
         grid=(),
         backend="triton",
-        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
                                                 num_stages=1),
         interpret=interpret,
         name="mtf_ranks",

@@ -10,6 +10,8 @@ run the same data everywhere.
                    little-endian int tables and zero padding
   markup(n, seed)  XML-ish records
   runs(n, seed)    long byte runs (RLE1-heavy, deep BWT ties)
+  repeats(n, seed) a text sample repeated ~24 times with sparse byte
+                   edits: long BWT runs, so its run tokens fit N // 4
   noise(n, seed)   incompressible bytes
   mixed(n, seed)   text 50%, binary 25%, markup 15%, noise 10%,
                    shuffled in 4 KiB pages so every 900k block sees a
@@ -93,6 +95,15 @@ def runs(n: int, seed: int = 0) -> bytes:
     vals = rng.integers(0, 256, k, dtype=np.uint8)
     lens = rng.geometric(1 / 24, k)
     return np.repeat(vals, lens)[:n].tobytes().ljust(n, b"\0")
+
+
+def repeats(n: int, seed: int = 0) -> bytes:
+    rng = np.random.default_rng(seed)
+    unit = np.frombuffer(text(max(64, n // 24), seed), np.uint8)
+    out = np.resize(unit, n)
+    k = n // 4096 + 1
+    out[rng.integers(0, n, k)] = rng.integers(0, 256, k, dtype=np.uint8)
+    return out.tobytes()
 
 
 def noise(n: int, seed: int = 0) -> bytes:

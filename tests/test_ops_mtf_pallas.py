@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from lbzip2_tpu.ops.mtf import mtf_ranks
-from lbzip2_tpu.ops.mtf_triton import mtf_ranks_rows_triton
+from lbzip2_tpu.ops.mtf_triton import CHUNK, mtf_ranks_rows_triton
 
 
 def _list_ranks(syms):
@@ -45,13 +45,21 @@ def test_pallas_mtf_matches(seed, n, hi):
     np.testing.assert_array_equal(scan, want)
 
 
-@pytest.mark.parametrize("chunk", [16, 64])
-def test_triton_mtf_chunk_sizes(chunk):
-    """The carried last[] vector crosses chunk boundaries correctly at
-    any chunk width."""
-    syms, ns, want = _rows(4, 1500, 40)
-    got = np.asarray(mtf_ranks_rows_triton(syms, ns, chunk=chunk,
-                                           interpret=True))
+@pytest.mark.parametrize("period", [CHUNK, 3 * CHUNK + 5])
+def test_triton_mtf_chunk_sizes(period):
+    """The carried last[] vector crosses chunk boundaries: rows many
+    CHUNKs long where each symbol recurs only `period` lanes later, so
+    most ranks read a last occurrence from an earlier chunk."""
+    N = 64 * CHUNK
+    ns = np.array([N, N - 7], np.int32)
+    rng = np.random.default_rng(period)
+    syms = np.zeros((2, N), np.int32)
+    want = np.zeros((2, N), np.int32)
+    for b in range(2):
+        cycle = rng.permutation(256)[:period % 256 or 256]
+        syms[b, :ns[b]] = np.resize(cycle, ns[b])
+        want[b, :ns[b]] = _list_ranks(syms[b, :ns[b]].tolist())
+    got = np.asarray(mtf_ranks_rows_triton(syms, ns, interpret=True))
     np.testing.assert_array_equal(got, want)
 
 
